@@ -5,11 +5,11 @@ Each device owns a contiguous run of z-planes of the grid (mass-balanced by
 capacity ``p_cap``), exchanges one-plane halos with its mesh neighbours via
 ``ppermute`` every step, and migrates boundary-crossing particles at rebins.
 The reference has no multi-device story at all (SURVEY.md §2); this layer is
-the TPU-native replacement for the comm backend it never had.
+the replacement for the comm backend it never had.
 
-On a machine without 8 real chips this script splits the host CPU into 8
+On a machine without 8 devices this script splits the host CPU into 8
 virtual devices — every collective compiles and runs exactly as it would on
-an 8-chip slice (the same trick tests/conftest.py uses):
+a real mesh (the same trick tests/conftest.py uses):
 
     python examples/distributed.py
 """
@@ -17,10 +17,10 @@ an 8-chip slice (the same trick tests/conftest.py uses):
 import os
 import sys
 
-# Demo default: an 8-device VIRTUAL CPU mesh.  On a real multi-chip slice,
-# run with SPH_EXAMPLE_REAL_DEVICES=1 to use the actual chips instead.
-# (Env + config both, before any device touch — some TPU plugins force
-# JAX_PLATFORMS at interpreter startup, so the env var alone is not enough.)
+# Demo default: an 8-device VIRTUAL CPU mesh.  With real devices, run with
+# SPH_EXAMPLE_REAL_DEVICES=1 to use them instead.
+# (Env + config both, before any device touch, so an installed accelerator
+# plugin cannot take over.)
 _USE_REAL = os.environ.get("SPH_EXAMPLE_REAL_DEVICES") == "1"
 if not _USE_REAL:
     os.environ["JAX_PLATFORMS"] = "cpu"

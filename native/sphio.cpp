@@ -1,8 +1,8 @@
-// sphio: native IO runtime for the TPU SPH framework.
+// sphio: native IO runtime for the SPH framework.
 //
 // The reference does its diagnostics IO inline on the simulation thread
 // (ofstream writes every step, /root/reference/src/sph.cpp:162-186,203).
-// On TPU the step runs in microseconds, so IO must never block the dispatch
+// On the accelerator a step can take well under a millisecond, so IO must never block the dispatch
 // thread: this library provides a background-thread writer with a lock-free
 // handoff queue, plus CRC-checked binary snapshot writing for checkpoints.
 //

@@ -1,10 +1,10 @@
-"""TPU-native Smoothed Particle Hydrodynamics framework.
+"""Smoothed Particle Hydrodynamics framework in JAX, for the GPU.
 
 A from-scratch JAX / XLA / Pallas re-design of the capabilities of
 ``DanielaCourel/smoothed_particle_hydrodynamics`` (a C++/Qt astrophysical SPH
 gas-disk simulator): poly6 density, spiky pressure gradient, viscosity
 Laplacian, stiff EoS, central point-mass gravity, leapfrog KDK integration,
-sort-based uniform-grid neighbor search, multi-chip spatial sharding, and the
+sort-based uniform-grid neighbor search, multi-device spatial sharding, and the
 diagnostics/render/benchmark surface around it.
 """
 

@@ -28,10 +28,9 @@ def _add_common(p: argparse.ArgumentParser) -> None:
     p.add_argument("-n", "--num-particles", type=int, default=None)
     p.add_argument("--backend", default="auto",
                    choices=["auto", "celllist", "pairwise", "pallas", "compat"],
-                   help="auto = pallas kernels on TPU, celllist elsewhere; "
-                        "celllist/pairwise are portable XLA oracles (slower "
-                        "than the C++ reference at 32k — production speed "
-                        "lives in the pallas backend)")
+                   help="auto = the Pallas sweeps on a GPU, celllist "
+                        "elsewhere and on several devices; celllist and "
+                        "pairwise are the plain XLA references")
     p.add_argument("--compat", action="store_true",
                    help="reproduce the C++ reference's quirks (SURVEY.md §2.1)")
     p.add_argument("--set", action="append", default=[], metavar="KEY=VALUE",
@@ -39,20 +38,20 @@ def _add_common(p: argparse.ArgumentParser) -> None:
 
 
 def _resolve_backend(args) -> None:
-    """'auto' = the production pallas path on TPU, the XLA oracle elsewhere."""
+    """Resolve ``--backend auto`` (``ops.step.default_backend``)."""
     if getattr(args, "backend", None) != "auto":
         return
     if getattr(args, "compat", False):
         args.backend = "compat"
         return
-    if (getattr(args, "devices", 0) and args.devices > 1
-            and getattr(args, "partition", "slab") != "slab"):
-        args.backend = "celllist"  # the halo-sharded step runs cell-list sweeps
+    if getattr(args, "devices", 0) and args.devices > 1:
+        args.backend = "celllist"  # both multi-device engines sweep cell lists
         return
     import jax
 
-    platform = jax.devices()[0].platform.lower()
-    args.backend = "celllist" if platform == "cpu" else "pallas"
+    from .ops.step import default_backend
+
+    args.backend = default_backend(jax.devices()[0].platform)
 
 
 def _apply_overrides(args) -> dict:
@@ -77,8 +76,8 @@ def cmd_run(args) -> int:
     import signal
 
     import jax
-    import jax.numpy as jnp
 
+    from .state import stack_diagnostics
     from .utils.diagnostics import DiagnosticsWriter, detect_blowup, detect_truncation
     from .utils import io as ckpt_io
 
@@ -98,29 +97,6 @@ def cmd_run(args) -> int:
         cfg, state = make_scene(args.scene, **overrides)
         start_step = 0
     cfg.validate()
-    if (args.backend == "pallas" and cfg.capped_candidates
-            and "pallas_block_t" not in overrides):
-        # capped windows are K_c-bounded, so 256-wide kernel blocks halve
-        # the per-(block, rod) fixed + DMA-descriptor costs for only ~35%
-        # more (cheap) union-window lanes — measured -17% steady at 1M
-        # (docs/PERFORMANCE.md r4 #33).  Exact mode stays 128: its windows
-        # are occupancy-bounded and the union growth wins there.
-        cfg = cfg.replace(pallas_block_t=256)
-    if args.backend == "pallas" and cfg.pallas_window_t == 0:
-        # auto window: size the sublane DMA window from this scene's actual
-        # rod-window length distribution (p90 measured best)
-        from .ops.pallas_step_t import derive_window_t
-
-        cfg = cfg.replace(pallas_window_t=derive_window_t(cfg, state))
-        print(f"derived pallas_window_t={cfg.pallas_window_t}")
-    if (args.backend == "pallas" and cfg.capped_candidates
-            and cfg.capped_sub_len == 0):
-        # auto sub-frame bound: kept-count from the occupancy histogram
-        from .ops.pallas_step_t import derive_sub_len
-
-        cfg = cfg.replace(capped_sub_len=derive_sub_len(cfg, state))
-        if cfg.capped_sub_len:
-            print(f"derived capped_sub_len={cfg.capped_sub_len}")
     if cfg.range_slice == 0:
         # auto candidate-slice: size from this scene's 3-cell occupancy
         from .ops.celllist import derive_range_slice
@@ -134,19 +110,13 @@ def cmd_run(args) -> int:
     post_block = None  # slab partition installs a rebalance hook
 
     if args.devices and args.devices > 1:
-        # slab partition: production pallas sweeps run INSIDE each shard
-        # (same sublane kernels as single-chip); halo partition only has the
-        # cell-list sweeps — honouring another backend silently would run
-        # something the user didn't ask for
-        if args.partition == "slab":
-            if args.backend not in ("celllist", "pallas"):
-                raise SystemExit(
-                    f"--devices {args.devices} --partition slab supports "
-                    f"--backend celllist or pallas, not {args.backend}")
-        elif args.backend != "celllist":
+        # both multi-device engines run the XLA cell-list sweeps inside each
+        # shard — honouring another backend silently would run something
+        # the user didn't ask for
+        if args.backend != "celllist":
             raise SystemExit(
-                f"--devices {args.devices} --partition halo uses the sharded "
-                f"cell-list step; --backend {args.backend} is not available")
+                f"--devices {args.devices} runs the cell-list sweeps in each "
+                f"shard; --backend {args.backend} is single-device only")
         from .parallel import make_mesh
 
         mesh = make_mesh(args.devices)
@@ -158,17 +128,7 @@ def cmd_run(args) -> int:
                                    distribute, make_slab_step)
             from .parallel.slabs import maybe_rebalance
 
-            # (pallas_window_t == 0 was already derived above for backend
-            # "pallas", before the devices branch)
-            slab_sweeps = "pallas" if args.backend == "pallas" else "celllist"
             zsplit = derive_zsplit(cfg, state, args.devices)
-            slab_sub = None
-            if slab_sweeps == "pallas" and cfg.capped_candidates:
-                from .parallel.slabs import derive_sub_len_slab
-
-                slab_sub = derive_sub_len_slab(cfg, state, args.devices,
-                                               zsplit)
-                print(f"derived slab sub_len={slab_sub}")
             caps = derive_slab_caps(cfg, state, args.devices, zsplit=zsplit)
             slab_ctx = {"carry": distribute(cfg, state, mesh, caps[0],
                                             zsplit=zsplit),
@@ -176,14 +136,12 @@ def cmd_run(args) -> int:
 
             def make_run(run_cfg):
                 slab_step = make_slab_step(run_cfg, mesh, *slab_ctx["caps"],
-                                           zsplit=slab_ctx["zsplit"],
-                                           sweeps=slab_sweeps,
-                                           sub_len=slab_sub)
+                                           zsplit=slab_ctx["zsplit"])
                 k = max(args.scan_block, 1)
                 slab_scan = (make_slab_step(
                     run_cfg, mesh, *slab_ctx["caps"],
-                    zsplit=slab_ctx["zsplit"], sweeps=slab_sweeps,
-                    sub_len=slab_sub, scan_block=k) if k > 1 else None)
+                    zsplit=slab_ctx["zsplit"], scan_block=k)
+                    if k > 1 else None)
 
                 def run(s, num_steps):
                     carry = slab_ctx["carry"]
@@ -199,7 +157,7 @@ def cmd_run(args) -> int:
                         diags.append(d)
                     slab_ctx["carry"] = carry
                     return (collect(carry, run_cfg.num_particles),
-                            jax.tree.map(lambda *xs: jnp.stack(xs), *diags))
+                            stack_diagnostics(diags))
                 return run
 
             def post_block(run_cfg):
@@ -208,15 +166,11 @@ def cmd_run(args) -> int:
                 # block boundaries (host-side, recompiles like --apply)
                 if not args.rebalance_threshold:
                     return None
-                carry2, zs2, caps2, sub2, changed = maybe_rebalance(
+                carry2, zs2, caps2, changed = maybe_rebalance(
                     run_cfg, mesh, slab_ctx["carry"], run_cfg.num_particles,
                     threshold=args.rebalance_threshold)
                 if not changed:
                     return None
-                nonlocal slab_sub
-                if slab_sweeps == "pallas" and run_cfg.capped_candidates:
-                    # the t=0 sub-frame bound goes stale with the partition
-                    slab_sub = sub2
                 slab_ctx.update(carry=carry2, zsplit=zs2, caps=caps2)
                 print(f"rebalanced slabs: p_cap={caps2[0]} zsplit={zs2}")
                 return make_run(run_cfg)
@@ -227,8 +181,7 @@ def cmd_run(args) -> int:
             state = shard_state(mesh, state)
 
             def make_run(run_cfg):
-                # host loop, like single-device: scan with stacked diagnostics
-                # ys de-optimizes large-N steps (docs/PERFORMANCE.md §4)
+                # host loop, like single-device
                 sharded_step = make_sharded_step(run_cfg, mesh)
 
                 def run(s, num_steps):
@@ -236,14 +189,14 @@ def cmd_run(args) -> int:
                     for _ in range(num_steps):
                         s, d = sharded_step(s)
                         diags.append(d)
-                    return s, jax.tree.map(lambda *xs: jnp.stack(xs), *diags)
+                    return s, stack_diagnostics(diags)
                 return run
     else:
+        from .ops import lazy
+
         use_lazy = args.lazy
-        if use_lazy is None:  # auto: the pallas production driver
-            use_lazy = (args.backend == "pallas" and not cfg.compat
-                        and cfg.pallas_layout == "sublane"
-                        and cfg.second_kick != "full")
+        if use_lazy is None:
+            use_lazy = lazy.applies(cfg, args.backend)
         if use_lazy:
             # lazy rebinning (ops.lazy): state stays sorted, bins rebuild only
             # when drift crosses (cell_size - h)/2
@@ -260,8 +213,7 @@ def cmd_run(args) -> int:
                     return unsort_carry(carry), diags
                 return run
         else:
-            # host loop with donation: lax.scan de-optimizes the pallas step at
-            # large N (docs/PERFORMANCE.md), host dispatch is negligible
+            # host loop with donation, one jitted step per call
             from .ops.step import drive_loop
 
             def make_run(run_cfg):
@@ -450,19 +402,15 @@ def cmd_run(args) -> int:
 
 
 def cmd_bench(args) -> int:
+    from .ops import lazy as lazy_driver
     from .utils.benchmark import run_benchmark
 
     _resolve_backend(args)
     overrides = _apply_overrides(args)
-    # like bench.py / cmd_run: the pallas production path benches through the
-    # lazy rebinning driver, but only where the driver is valid (same auto
-    # condition as cmd_run; --lazy / --no-lazy overrides)
     lazy = args.lazy
     if lazy is None:
-        probe = SphConfig().replace(**overrides)  # overrides are config fields
-        lazy = (args.backend == "pallas" and not probe.compat
-                and probe.pallas_layout == "sublane"
-                and probe.second_kick != "full")
+        cfg, _ = make_scene(args.scene, **overrides)
+        lazy = lazy_driver.applies(cfg, args.backend)
     result = run_benchmark(scene=args.scene, backend=args.backend,
                            steps=args.steps or 100, warmup=args.warmup,
                            overrides=overrides, lazy=lazy)
@@ -484,32 +432,24 @@ def cmd_sweep(args) -> int:
     import jax
     import numpy as np
 
+    from .ops import lazy
+    from .ops.step import drive_loop
     from .utils.diagnostics import detect_blowup
 
     _resolve_backend(args)
     overrides = _apply_overrides(args)
     mus = [float(x) for x in args.viscosity.split(",")]
     ks = [float(x) for x in args.stiffness.split(",")]
-    use_lazy = (args.backend == "pallas" and not overrides.get("compat")
-                and overrides.get("pallas_layout", "sublane") == "sublane"
-                and overrides.get("second_kick") != "full")
     rows = []
     for mu, k in itertools.product(mus, ks):
         cfg, state = make_scene(args.scene, **{**overrides, "viscosity": mu,
                                                "stiffness": k})
         cfg.validate()
-        if args.backend == "pallas" and cfg.pallas_window_t == 0:
-            from .ops.pallas_step_t import derive_window_t
-
-            cfg = cfg.replace(pallas_window_t=derive_window_t(cfg, state))
+        use_lazy = lazy.applies(cfg, args.backend)
         if cfg.range_slice == 0:
             from .ops.celllist import derive_range_slice
 
             cfg = cfg.replace(range_slice=derive_range_slice(cfg, state))
-        if use_lazy:
-            from .ops.lazy import drive_loop_lazy
-        else:
-            from .ops.step import drive_loop
 
         done = 0
         blowup_step = None
@@ -519,8 +459,9 @@ def cmd_sweep(args) -> int:
         while done < args.steps and blowup_step is None:
             nblock = min(args.block, args.steps - done)
             if use_lazy:
-                carry, diags = drive_loop_lazy(cfg, st, nblock, carry=carry,
-                                               keep_carry=True)
+                carry, diags = lazy.drive_loop_lazy(cfg, st, nblock,
+                                                    carry=carry,
+                                                    keep_carry=True)
             else:
                 st, diags = drive_loop(cfg, st, nblock, backend=args.backend)
             ke = np.asarray(diags.kinetic_energy)
@@ -735,6 +676,9 @@ def cmd_parity(args) -> int:
 
 
 def main(argv=None) -> int:
+    from .utils.cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser("sph-tpu", description=__doc__)
     sub = ap.add_subparsers(dest="cmd", required=True)
 
@@ -764,13 +708,13 @@ def main(argv=None) -> int:
                         "boundaries when per-device load imbalance (max/mean "
                         "count) exceeds this ratio; 0 disables")
     p.add_argument("--partition", default="slab", choices=["slab", "halo"],
-                   help="multi-device decomposition: 'slab' (default, the "
-                        "production path) = fully distributed engine with "
-                        "local sort + migration at O(N/D) memory "
-                        "(parallel/slabs.py); 'halo' = the row-sharded "
-                        "verification oracle whose binning runs REPLICATED "
-                        "on every device — it cannot weak-scale and exists "
-                        "for cross-checking the slab engine")
+                   help="multi-device decomposition: 'slab' (default) = "
+                        "fully distributed engine with local sort + "
+                        "migration at O(N/D) memory (parallel/slabs.py); "
+                        "'halo' = the row-sharded verification oracle whose "
+                        "binning runs REPLICATED on every device — it "
+                        "cannot weak-scale and exists for cross-checking "
+                        "the slab engine")
     p.add_argument("--profile-phases", action="store_true",
                    help="measure per-phase times once (reference timing.txt columns)")
     p.add_argument("--exact-ic", action="store_true",
@@ -783,12 +727,11 @@ def main(argv=None) -> int:
                         "--apply 500:viscosity=0.1")
     p.add_argument("--lazy", action=argparse.BooleanOptionalAction, default=None,
                    help="lazy rebinning driver (default: auto — on for the "
-                        "sublane pallas backend)")
+                        "pallas backend in default mode)")
     p.add_argument("--scan-block", type=int, default=0,
                    help="steps per dispatch via lax.scan (lazy driver AND "
                         "slab engine) — dispatch amortization for small "
-                        "scenes / small per-chip loads; 0 = host loop, the "
-                        "1M-measured default")
+                        "scenes; 0 = host loop")
     p.add_argument("--quiet", action="store_true")
     p.set_defaults(fn=cmd_run)
 
@@ -798,7 +741,7 @@ def main(argv=None) -> int:
     p.add_argument("--warmup", type=int, default=10)
     p.add_argument("--lazy", action=argparse.BooleanOptionalAction, default=None,
                    help="lazy rebinning driver (default: auto — on for the "
-                        "sublane pallas backend in default mode)")
+                        "pallas backend in default mode)")
     p.set_defaults(fn=cmd_bench)
 
     p = sub.add_parser("sweep", help="viscosity x stiffness regime sweep "

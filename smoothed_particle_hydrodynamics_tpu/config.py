@@ -74,7 +74,7 @@ class SphConfig:
 
     # --- solver limits ---------------------------------------------------------------
     cfl_limit: float = 1e4              # acceleration magnitude clamp
-    max_neighbors: int = 32             # per-particle neighbor cap (compat / capped modes)
+    max_neighbors: int = 32             # per-particle neighbor cap (compat mode)
     cell_capacity: int = 96             # max particles binned per grid cell
     range_slice: int = 96               # candidate slice length per x-contiguous cell range
 
@@ -88,66 +88,12 @@ class SphConfig:
     # "cell27" = full 3x3x3 superset (always safe)
     neighborhood: NeighborhoodMode = "octant"
 
-    # --- pallas kernel tuning ---------------------------------------------------
-    # Window must cover block_rows + stencil-extent*occupancy + 128 alignment
-    # for single-DMA blocks; 128/512 measured best at 1M (docs/PERFORMANCE.md).
-    pallas_block_rows: int = 128    # sorted particles per kernel grid step
-    pallas_window: int = 512        # candidate DMA window (lane-aligned)
-    pallas_interpret: bool = False  # run kernels in interpreter mode (CPU tests)
-    # "sublane": candidates on the sublane axis (8-aligned windows, MXU force
-    # reductions; measured 207 -> 122 ms/step at 1M — the production layout);
-    # "lane": candidates on the lane axis (128-aligned windows; kept as the
-    # second hardware oracle)
-    pallas_layout: str = "sublane"
-    # sublane window: 192 covers ~p90 of rod windows at 1M/occupancy-7 scenes;
-    # measured best (smaller hits the synchronous multi-chunk tail, larger is
-    # padding — docs/PERFORMANCE.md round 2)
-    pallas_window_t: int = 192      # sublane-layout window (multiple of 8)
-    # sublane-layout particles per kernel grid step (the output lane width).
-    # Wider blocks visit fewer (block, rod) windows: per-rod fixed cost and
-    # DMA descriptor count scale with block COUNT while the union window
-    # only grows by the extra block extent — measured at 1M the sweeps are
-    # descriptor/fixed-cost bound, not VPU bound (docs/PERFORMANCE.md r4
-    # #32), so 256 trades ~35% more cheap lanes for half the overhead.
-    pallas_block_t: int = 128       # sublane-layout block width (128/256/512)
-    # lane groups per 128-particle block: each group gets its own (smaller)
-    # rod windows, merged per candidate column by lane selects — trades a few
-    # select ops for near-G-fold fewer swept rows (block extent dominates
-    # window length)
-    pallas_groups: int = 1
-    # (an r4 "pallas_rods=3" merged-y-rod dial lived here; the r5 hardware
-    # A/B measured it ~2x slower at both 1M and 125k/chip — docs/ab_rods3_1m.log,
-    # docs/ab_slab125.log — and it was deleted)
-    # --- capped candidates (the reference's "Subsets" optimization) ----------
-    # The reference bounds pair work by stochastically subsampling neighbors
-    # (/root/reference/src/sph.cpp:98,590-598,679-682; README.md:267-268
-    # "Subsets").  Here the TPU-native form caps the CANDIDATE SOURCE at
-    # ``capped_candidates`` particles per cell (deterministic hash-selected),
-    # shrinking every rod window from extent*occupancy to extent*K_c.
-    # 0 = off (exact, the default).  ``capped_reweight`` scales each kept
-    # candidate's mass by occupancy/kept so density stays unbiased (the
-    # reference truncates without reweighting — set False for that semantic).
-    capped_candidates: int = 0
-    capped_reweight: bool = True
-    # Fused capped sweep: ONE window pass computes density + force, fed by a
-    # sub-frame density pre-pass (pallas_step_t._fused_kernel_t) — removes
-    # the full density sweep's (block, rod) visits, the dominant capped cost
-    # (docs/PERFORMANCE.md #39).  Capped pallas mode only; ignored elsewhere.
-    capped_fused: bool = False
-    # static length of the subsampled candidate frame (0 = N, always safe).
-    # The kept count is ~N*min(1, K_c/occupancy); sizing the frame near it
-    # (derive_sub_len: 1.15x margin) shrinks the per-step candidate gathers
-    # and pad writes proportionally.  Overflow (kept > capped_sub_len) drops
-    # the tail cells' candidates — COUNTED in truncated_ranges, never silent.
-    capped_sub_len: int = 0
-    # (two more r3 dials lived here and were deleted after hardware A/Bs
-    # measured both as end-to-end no-ops at 1M AND at the 125k/chip
-    # strong-scaling load: ``force_recip`` — reciprocal lowerings for the
-    # force kernel's 1/(d+eps), 10.56 vs 10.60 ms, docs/ab_slab125.log — and
-    # ``fused_kdk`` — integrate+reflect+tally as one fused pallas pass,
-    # 10.42 vs 10.37 ms; the sweeps dominate every measured regime, so the
-    # integrate-side fusion and the per-op force lowering have nothing to
-    # save.  docs/PERFORMANCE.md r3 #23-24, r5 dial-hygiene note.)
+    # --- execution -----------------------------------------------------------------
+    # rows per lax.map chunk of the XLA cell-list sweeps; 0 = all rows in
+    # one chunk.  One chunk is fastest, but its candidate tensors take
+    # ~43 KB per particle at range_slice 128 (PERF.md, "Kernel decisions")
+    sweep_chunk: int = 131072
+    pallas_interpret: bool = False  # run Pallas kernels in interpret mode (CPU tests)
 
     # ---------------------------------------------------------------------------
     # Derived constants (float32-faithful to /root/reference/src/sph.cpp:46-95)
@@ -248,11 +194,5 @@ class SphConfig:
             raise ValueError("octant stencil requires cell_size >= 2h; use cell27")
         if self.compat and self.cell_size_factor != 2.0:
             raise ValueError("compat mode requires the reference's 2h cells")
-        if self.capped_candidates < 0:
-            raise ValueError("capped_candidates must be >= 0 (0 = off)")
-        if self.capped_sub_len < 0 or self.capped_sub_len % 128:
-            raise ValueError("capped_sub_len must be a non-negative multiple "
-                             "of 128 (0 = num_particles)")
-        if self.capped_candidates and self.compat:
-            raise ValueError("capped_candidates is the default-mode subsets "
-                             "feature; compat mode has its own bit-faithful cap")
+        if self.sweep_chunk < 0:
+            raise ValueError("sweep_chunk must be >= 0 (0 = one chunk)")

@@ -11,9 +11,9 @@ fully static-shape pipeline:
   valid because the interaction radius h is half the 2h cell size);
 * per particle, a fixed-size slice of ``cfg.range_slice`` candidates is taken
   from each range (truncation is counted, not silently dropped);
-* density and force sweeps run as ``lax.map`` over particle chunks so the
-  candidate tensors ([chunk, R, S]) stay small enough to live on-chip while
-  XLA fuses the gather + mask + reduce.
+* density and force sweeps run as ``lax.map`` over chunks of
+  ``cfg.sweep_chunk`` particles, which bounds the candidate tensors
+  ([chunk, R, S]) while XLA fuses the gather + mask + reduce.
 
 Unlike the reference there is no 32-neighbor random subsample in default mode:
 all in-range candidates contribute (physically correct); ``compat`` parity
@@ -87,11 +87,10 @@ def candidate_ranges(cfg: SphConfig, g: Grid, pos_sorted: jnp.ndarray
     the reference (/root/reference/src/sph.cpp:504-515): offset +1 if the
     in-cell coordinate exceeds h, else -1.
 
-    Implementation: per-particle gathers of cell offsets are ~10x more
-    expensive on TPU than row gathers, so the ranges are assembled from a
-    per-CELL table [C, 9, 4] built with shifted views of cell_start/cell_end
-    (pure slices, no gathers), fetched with ONE row gather by cell id, then
-    narrowed per particle with elementwise sign selects.
+    Implementation: the ranges are assembled from a per-CELL table [C, 9, 4]
+    built with shifted views of cell_start/cell_end (pure slices, no
+    gathers), fetched with ONE row gather by cell id, then narrowed per
+    particle with elementwise sign selects.
     """
     nx, ny, nz = cfg.grid_nx, cfg.grid_ny, cfg.grid_nz
     c_arange = jnp.arange(cfg.num_cells, dtype=jnp.int32)
@@ -153,11 +152,13 @@ def candidate_ranges(cfg: SphConfig, g: Grid, pos_sorted: jnp.ndarray
 
 
 def _chunked(fn, row_args: tuple, n: int, chunk: int):
-    """Pad rows to a multiple of ``chunk`` and lax.map ``fn`` over chunks.
+    """Pad rows to a multiple of ``chunk`` and lax.map ``fn`` over chunks
+    (``chunk`` 0 = all rows in one chunk).
 
     ``row_args`` is a tuple of [N, ...] arrays; ``fn`` receives the chunked
     tuple ([chunk, ...]) and must return a pytree of [chunk, ...] arrays.
     """
+    chunk = min(chunk or n, n)
     n_pad = -(-n // chunk) * chunk
     padded = tuple(
         jnp.pad(a, ((0, n_pad - n),) + ((0, 0),) * (a.ndim - 1)) for a in row_args
@@ -204,8 +205,7 @@ class Prepared(NamedTuple):
 def prepare(cfg: SphConfig, state: ParticleState) -> Prepared:
     """Binning + sort + candidate ranges — the 'voxelize/findNeighbors' analog.
 
-    All fields are permuted with ONE row gather of a stacked [N, 7] matrix
-    (row gathers of wide rows are ~cheap on TPU; per-field gathers are not).
+    All fields are permuted with ONE row gather of a stacked [N, 7] matrix.
     """
     g = build_grid(cfg, state.position)
     stacked = jnp.concatenate(
@@ -224,7 +224,7 @@ def prepare(cfg: SphConfig, state: ParticleState) -> Prepared:
 
 
 def density_rows(cfg: SphConfig, pos_s, mass_s, rng_start, rng_end, own_idx,
-                 pos_i, m_i, chunk: int = 1024):
+                 pos_i, m_i):
     """Density sweep over a row block.
 
     ``pos_s/mass_s`` are the FULL sorted arrays (gather sources);
@@ -250,12 +250,11 @@ def density_rows(cfg: SphConfig, pos_s, mass_s, rng_start, rng_end, own_idx,
         return rho, ncount, truncated
 
     return _chunked(density_chunk, (rng_start, rng_end, own_idx, pos_i, m_i),
-                    n_rows, min(chunk, n_rows))
+                    n_rows, cfg.sweep_chunk)
 
 
 def force_rows(cfg: SphConfig, pos_s, vel_s, mass_s, rho_s,
-               rng_start, rng_end, own_idx, pos_i, vel_i, rho_i,
-               chunk: int = 1024):
+               rng_start, rng_end, own_idx, pos_i, vel_i, rho_i):
     """Force sweep over a row block (needs the FULL rho_s of sweep 1)."""
     n_total = pos_s.shape[0]
     n_rows = rng_start.shape[0]
@@ -280,14 +279,14 @@ def force_rows(cfg: SphConfig, pos_s, vel_s, mass_s, rho_s,
 
     acc = _chunked(force_chunk,
                    (rng_start, rng_end, own_idx, pos_i, vel_i, rho_i),
-                   n_rows, min(chunk, n_rows))
+                   n_rows, cfg.sweep_chunk)
     acc = acc + physics.central_gravity(cfg, pos_i)
     acc = acc + jnp.asarray(cfg.gravity, jnp.float32)
     return physics.cfl_clamp(cfg, acc)
 
 
 def compute_step_quantities(
-    cfg: SphConfig, state: ParticleState, chunk: int = 1024,
+    cfg: SphConfig, state: ParticleState,
 ) -> tuple[jnp.ndarray, jnp.ndarray, CellListAux]:
     """Full per-step field evaluation: density + acceleration + diagnostics.
 
@@ -302,11 +301,11 @@ def compute_step_quantities(
 
     rho_s, ncount_s, truncated = density_rows(
         cfg, p.pos_s, p.mass_s, p.rng_start, p.rng_end, own_idx,
-        p.pos_s, p.mass_s, chunk=chunk)
+        p.pos_s, p.mass_s)
 
     acc_s = force_rows(
         cfg, p.pos_s, p.vel_s, p.mass_s, rho_s,
-        p.rng_start, p.rng_end, own_idx, p.pos_s, p.vel_s, rho_s, chunk=chunk)
+        p.rng_start, p.rng_end, own_idx, p.pos_s, p.vel_s, rho_s)
 
     g = p.grid
     aux = CellListAux(

@@ -1,8 +1,8 @@
-"""Uniform-grid binning, TPU style.
+"""Uniform-grid binning by sort.
 
 The reference bins particles into 32^3 ``QList`` buckets by sequential
 push_back (/root/reference/src/sph.cpp:429-481).  Dynamic lists don't exist
-under XLA; the TPU-native equivalent is *sort-based binning*:
+under XLA; the static-shape equivalent is *sort-based binning*:
 
 1. compute each particle's linear cell id ``(z*ny + y)*nx + x``
    (src/sph.cpp:1151-1154), positions clamped into the grid exactly like the
@@ -63,8 +63,7 @@ def build_grid(cfg: SphConfig, pos: jnp.ndarray) -> Grid:
     cid = linear_cell_id(cfg, coords)
     order = jnp.argsort(cid, stable=True).astype(jnp.int32)
     cid_sorted = cid[order]
-    # Per-cell offsets via histogram + prefix sum (~70x cheaper than the
-    # equivalent double searchsorted on TPU).
+    # Per-cell offsets via histogram + prefix sum.
     counts = jnp.bincount(cid, length=cfg.num_cells).astype(jnp.int32)
     cell_end = jnp.cumsum(counts, dtype=jnp.int32)
     cell_start = cell_end - counts
@@ -82,9 +81,8 @@ def build_grid(cfg: SphConfig, pos: jnp.ndarray) -> Grid:
 def unsort(order: jnp.ndarray, sorted_values: jnp.ndarray) -> jnp.ndarray:
     """Scatter sorted-order values back to original particle order.
 
-    NB: XLA scatters are slow on TPU (a [1M,3] scatter measured ~45 ms fused,
-    ~90 ms isolated); hot paths should build the inverse permutation once via
-    ``inverse_order`` and gather with ``unsort_stacked`` instead."""
+    Hot paths that un-permute several arrays build the inverse permutation
+    once via ``inverse_order`` and gather with ``unsort_stacked`` instead."""
     out_shape = (sorted_values.shape[0],) + sorted_values.shape[1:]
     return jnp.zeros(out_shape, sorted_values.dtype).at[order].set(sorted_values)
 
@@ -101,8 +99,7 @@ def unsort_stacked(inv_order: jnp.ndarray, columns: list[jnp.ndarray]
     """Un-permute several [N] / [N,k] arrays with ONE stacked row gather.
 
     f32/i32 columns are gathered together as f32 (exact for int32 magnitudes
-    below 2^24, which holds for neighbor counts) — wide row gathers are ~10x
-    cheaper than per-array 1-D gathers on TPU."""
+    below 2^24, which holds for neighbor counts)."""
     parts = []
     for c in columns:
         c2 = c[:, None] if c.ndim == 1 else c

@@ -89,10 +89,7 @@ def energy_tally(cfg: SphConfig, pos: jnp.ndarray, vel: jnp.ndarray,
     """KE/PE/|L| sums matching /root/reference/src/sph.cpp:997-1013.
 
     Default mode reduces all five scalars (KE, PE, Lx, Ly, Lz) through ONE
-    stacked ``[N, 5]`` column sum: separate ``jnp.sum`` calls cost ~15 ms
-    inside the fused kdk program at 1M on v5e, the stacked reduce ~6 ms
-    (measured, ``tools/probe_tally.py`` — the separate reduces defeat XLA's
-    fusion of the tally epilogue into the update pass).
+    stacked ``[N, 5]`` column sum, one reduction instead of five.
     """
     center = jnp.asarray(cfg.central_pos, jnp.float32)
     rel = (pos - center) * _f32(cfg.sim_scale)

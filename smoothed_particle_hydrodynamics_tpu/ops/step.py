@@ -4,8 +4,8 @@ The reference's ``SPH::step`` sequences voxelize -> findNeighbors -> density ->
 (pressure inlined) -> acceleration -> integrate on a worker thread
 (/root/reference/src/sph.cpp:190-304).  Here a step is one pure function
 ``state -> (state, diagnostics)``; a whole run is ``lax.scan`` over it, traced
-once and compiled once.  Thread control (src/sph.cpp:120-147) has no TPU
-counterpart — dispatch is synchronous, execution is async on-device.
+once and compiled once.  Thread control (src/sph.cpp:120-147) has no
+counterpart here — dispatch is synchronous, execution is async on-device.
 """
 
 from __future__ import annotations
@@ -17,33 +17,30 @@ import jax
 import jax.numpy as jnp
 
 from ..config import SphConfig
-from ..state import ParticleState, StepDiagnostics, make_step_diagnostics
+from ..state import (ParticleState, StepDiagnostics, make_step_diagnostics,
+                     stack_diagnostics)
 from . import celllist, pairwise
 from .integrate import kdk_integrate
 
 Backend = Literal["celllist", "pairwise", "pallas", "compat"]
 
 
+def default_backend(platform: str) -> Backend:
+    """The single-device backend ``--backend auto`` runs on ``platform``
+    (``jax.devices()[0].platform``): the Pallas sweeps on a GPU, the XLA
+    cell list elsewhere."""
+    return "pallas" if platform == "gpu" else "celllist"
+
+
 def compute_forces(cfg: SphConfig, state: ParticleState, backend: Backend = "celllist"
                    ) -> tuple[jnp.ndarray, jnp.ndarray, celllist.CellListAux]:
     """(acceleration, density, aux) for the current positions/velocities."""
-    if cfg.capped_candidates and backend != "pallas":
-        # only the sublane pallas kernels implement the capped subsample;
-        # silently running exact physics under a capped config would let a
-        # user believe the Subsets dial is active when it is not
-        raise ValueError(f"capped_candidates={cfg.capped_candidates} is only "
-                         f"implemented by the pallas backend (got "
-                         f"{backend!r}); unset it for the exact backends")
     if backend == "celllist":
         return celllist.compute_step_quantities(cfg, state)
     if backend == "pallas":
-        if cfg.pallas_layout == "sublane":
-            from . import pallas_step_t
+        from . import pallas_sweep
 
-            return pallas_step_t.compute_step_quantities(cfg, state)
-        from . import pallas_step
-
-        return pallas_step.compute_step_quantities(cfg, state)
+        return pallas_sweep.compute_step_quantities(cfg, state)
     if backend == "compat":
         from ..compat.step import compute_compat_quantities
 
@@ -143,12 +140,9 @@ def drive_loop(cfg: SphConfig, state: ParticleState, num_steps: int,
                backend: Backend = "celllist",
                collect_diags: bool = True
                ) -> tuple[ParticleState, StepDiagnostics | None]:
-    """Host-driven step loop with buffer donation.
+    """Host-driven step loop with buffer donation, one jitted step per call.
 
-    Empirically (docs/PERFORMANCE.md) XLA runs the pallas step ~8x slower
-    inside ``lax.scan`` at 1M particles than as a top-level jitted call, while
-    host dispatch overhead is negligible at that size — so the production
-    driver loops on host.  Diagnostics are device scalars fetched lazily; with
+    Diagnostics are device scalars fetched lazily; with
     ``collect_diags=False`` nothing is fetched until the caller syncs.
     """
     f = _cached_step(cfg, backend)
@@ -159,7 +153,7 @@ def drive_loop(cfg: SphConfig, state: ParticleState, num_steps: int,
             diags.append(d)
     if not collect_diags:
         return state, None
-    stacked = jax.tree.map(lambda *xs: jnp.stack(xs), *diags)
+    stacked = stack_diagnostics(diags)
     return state, stacked
 
 
@@ -169,7 +163,7 @@ def simulate(cfg: SphConfig, state: ParticleState, backend: Backend = "celllist"
 
     Runs ``lax.scan`` blocks of ``steps_per_block`` under jit and invokes
     ``callback(step_index, state, diags_block)`` on host between blocks (for
-    file diagnostics, rendering, checkpointing) — the TPU analogue of the
+    file diagnostics, rendering, checkpointing) — the analogue of the
     reference's per-step file writes (src/sph.cpp:176-178).
     """
     total = cfg.num_steps + 1  # ref loop runs stepCount <= totalSteps

@@ -7,7 +7,7 @@ giving device ``d`` sorted rows ``[d*N/D, (d+1)*N/D)`` is a genuine spatial
 domain decomposition with load balance by construction (equal particles per
 device, not equal volume).
 
-Communication pattern per step, all compiled XLA collectives over ICI:
+Communication pattern per step, all compiled XLA collectives:
 
 * binning/sort is computed from replicated positions (cheap relative to the
   pair sweeps; a distributed sort is a later optimisation);
@@ -57,21 +57,19 @@ def shard_state(mesh: Mesh, state: ParticleState) -> ParticleState:
     return jax.tree.map(lambda a: jax.device_put(a, sh), state)
 
 
-def step_sharded(cfg: SphConfig, mesh: Mesh, state: ParticleState,
-                 chunk: int = 1024) -> tuple[ParticleState, StepDiagnostics]:
+def step_sharded(cfg: SphConfig, mesh: Mesh, state: ParticleState
+                 ) -> tuple[ParticleState, StepDiagnostics]:
     """One physics step, sharded over ``mesh``'s 'data' axis.  Call under jit."""
     n = state.position.shape[0]
     ndev = math.prod(mesh.devices.shape)
     if n % ndev:
         raise ValueError(f"num_particles={n} must be divisible by {ndev} devices")
-    rows = n // ndev
-    local_chunk = min(chunk, rows)
 
     p = celllist.prepare(cfg, state)
     own_idx = jnp.arange(n, dtype=jnp.int32)
 
     density_local = jax.shard_map(
-        partial(celllist.density_rows, cfg, chunk=local_chunk),
+        partial(celllist.density_rows, cfg),
         mesh=mesh,
         in_specs=(P(), P(), P("data"), P("data"), P("data"), P("data"), P("data")),
         out_specs=(P("data"), P("data"), P("data")),
@@ -80,7 +78,7 @@ def step_sharded(cfg: SphConfig, mesh: Mesh, state: ParticleState,
         p.pos_s, p.mass_s, p.rng_start, p.rng_end, own_idx, p.pos_s, p.mass_s)
 
     force_local = jax.shard_map(
-        partial(celllist.force_rows, cfg, chunk=local_chunk),
+        partial(celllist.force_rows, cfg),
         mesh=mesh,
         in_specs=(P(), P(), P(), P(),
                   P("data"), P("data"), P("data"), P("data"), P("data"), P("data")),
@@ -108,7 +106,7 @@ def step_sharded(cfg: SphConfig, mesh: Mesh, state: ParticleState,
 
 
 def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
-                      halo_rows: int, chunk: int = 1024
+                      halo_rows: int
                       ) -> tuple[ParticleState, StepDiagnostics]:
     """Sharded step with HALO EXCHANGE instead of gathered neighbor fields.
 
@@ -116,7 +114,7 @@ def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
     space (the linear cell id is z-major).  A particle's stencil candidates
     live at most one cell-plane away, i.e. within a bounded band of sorted
     indices around the slab; devices exchange ``halo_rows`` edge rows with
-    both mesh neighbors via ``lax.ppermute`` over ICI and run the sweeps
+    both mesh neighbors via ``lax.ppermute`` and run the sweeps
     against [halo | local | halo] only.  Candidates beyond the halo are
     dropped and counted (``truncated_ranges`` doubles as the halo-overflow
     counter) — size ``halo_rows`` to cover the densest plane population.
@@ -132,7 +130,6 @@ def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
     h = halo_rows
     if h > rows:
         raise ValueError("halo_rows must be <= rows per device")
-    local_chunk = min(chunk, rows)
 
     p = celllist.prepare(cfg, state)
     own_idx = jnp.arange(n, dtype=jnp.int32)
@@ -174,7 +171,7 @@ def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
         mass_i = fields_loc[:, 6]
 
         rho_l, nc_l, trunc = celllist.density_rows(
-            cfg, pos_e, mass_e, lo, hi, own_l, pos_i, mass_i, chunk=local_chunk)
+            cfg, pos_e, mass_e, lo, hi, own_l, pos_i, mass_i)
 
         # force sweep needs neighbor densities -> exchange rho halos too
         rho_left = jax.lax.ppermute(
@@ -187,7 +184,7 @@ def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
 
         acc_l = celllist.force_rows(
             cfg, pos_e, vel_e, mass_e, rho_e, lo, hi, own_l,
-            pos_i, vel_i, rho_l, chunk=local_chunk)
+            pos_i, vel_i, rho_l)
         # two distinct failure signals: static-capacity truncation vs candidates
         # cut because they fell outside the halo band (halo too small)
         truncated = jax.lax.psum(jnp.sum(trunc).astype(jnp.int32), axis)
@@ -220,12 +217,12 @@ def step_sharded_halo(cfg: SphConfig, mesh: Mesh, state: ParticleState,
 
 
 def run_steps_sharded(cfg: SphConfig, mesh: Mesh, state: ParticleState,
-                      num_steps: int, chunk: int = 1024
+                      num_steps: int
                       ) -> tuple[ParticleState, StepDiagnostics]:
     """lax.scan over the sharded step (whole-run loop on a mesh)."""
 
     def body(carry, _):
-        return step_sharded(cfg, mesh, carry, chunk=chunk)
+        return step_sharded(cfg, mesh, carry)
 
     return jax.lax.scan(body, state, None, length=num_steps)
 
@@ -253,17 +250,16 @@ def derive_halo_rows(cfg: SphConfig, state: ParticleState,
 
 
 def make_sharded_step(cfg: SphConfig, mesh: Mesh, donate: bool = True,
-                      halo_rows: int | None = None, variant: str = "halo",
-                      chunk: int = 1024
+                      halo_rows: int | None = None, variant: str = "halo"
                       ) -> Callable[[ParticleState], tuple[ParticleState, StepDiagnostics]]:
-    """The production multi-chip step: halo exchange over ICI.
+    """The multi-device halo-exchange step.
 
     ``halo_rows=None`` derives the halo from the first state's cell-plane
     occupancy (``derive_halo_rows``).  ``variant="gather"`` selects the
     replicated-gather step — kept as a correctness oracle for tests; it
     cannot weak-scale (per-device memory is O(N))."""
     if variant == "gather":
-        f = partial(step_sharded, cfg, mesh, chunk=chunk)
+        f = partial(step_sharded, cfg, mesh)
         return jax.jit(f, donate_argnums=(0,) if donate else ())
     if variant != "halo":
         raise ValueError(f"unknown sharded-step variant: {variant!r}")
@@ -276,8 +272,7 @@ def make_sharded_step(cfg: SphConfig, mesh: Mesh, donate: bool = True,
         if halo_rows is None:
             halo_rows = derive_halo_rows(cfg, state, ndev)
         if "f" not in jitted:
-            f = partial(step_sharded_halo, cfg, mesh, halo_rows=halo_rows,
-                        chunk=chunk)
+            f = partial(step_sharded_halo, cfg, mesh, halo_rows=halo_rows)
             jitted["f"] = jax.jit(f, donate_argnums=(0,) if donate else ())
         return jitted["f"](state)
 

@@ -2,7 +2,7 @@
 
 The reference stores particles as a structure-of-arrays container of flat
 ``std::vector<float>`` fields (`/root/reference/src/particle.h:13-18`).  The
-TPU-native equivalent is a NamedTuple-of-arrays pytree: ``[N,3]`` float32 for
+JAX equivalent is a NamedTuple-of-arrays pytree: ``[N,3]`` float32 for
 vectors, ``[N]`` for scalars.  Being a pytree it jit-traces, shards, scans and
 checkpoints with zero glue code.
 """
@@ -118,3 +118,12 @@ def make_step_diagnostics(tally, neighbor_count: jax.Array,
         halo_dropped=zero if halo_dropped is None else halo_dropped,
         migration_dropped=zero if migration_dropped is None else migration_dropped,
     )
+
+
+@jax.jit
+def stack_diagnostics(diags: list[StepDiagnostics]) -> StepDiagnostics:
+    """Per-step diagnostics -> one record of [steps] arrays.
+
+    Jitted: one dispatch, where op-by-op stacking costs one per field and
+    step — on the GPU more than a small scene's device step."""
+    return jax.tree.map(lambda *xs: jnp.stack(xs), *diags)

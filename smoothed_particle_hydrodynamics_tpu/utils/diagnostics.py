@@ -10,7 +10,7 @@ The reference writes four text files per run (/root/reference/src/sph.cpp:160-18
 
 We reproduce the same schemas byte-compatibly (so existing analysis scripts
 keep working) and add ``diagnostics.jsonl`` with one structured record per
-step.  On TPU the six reference phases fuse into one XLA program, so the
+step.  Under jit the six reference phases fuse into one XLA program, so the
 timing file reports the fused step time in the "Integrate" column and zeros
 elsewhere unless a per-phase profile is supplied.
 

@@ -97,7 +97,7 @@ def render_frame_perspective(cfg: SphConfig, state: ParticleState,
                              azimuth: float = 180.0,
                              box: bool = True) -> np.ndarray:
     """3-D perspective view: camera orbit-style around the box, looking at its
-    center — the TPU analog of the reference's GL frustum + lookAt camera
+    center — the analog of the reference's GL frustum + lookAt camera
     normalized by box size (visualization.cpp:327-362).
 
     ``azimuth`` (degrees, orbit around the +y axis; 180 = the legacy -z view),
@@ -163,7 +163,7 @@ def ansi_frame(img: np.ndarray, cols: int = 80, rows: int = 24) -> str:
     """Greyscale image -> ANSI half-block string: the in-terminal live view.
 
     The reference repaints its GL pane at 60 FPS while the sim runs
-    (/root/reference/src/visualization.cpp:24-33); on a headless TPU host the
+    (reference src/visualization.cpp:24-33); on a headless host the
     terminal IS the display, so each character cell renders two vertically
     stacked pixels with the upper-half-block glyph (foreground = top pixel,
     background = bottom pixel) on the 24-level xterm-256 greyscale ramp.

@@ -1,4 +1,4 @@
-"""Unit tests for compat-emulation internals and pallas host plumbing."""
+"""Unit tests for compat-emulation internals and the sweep window tables."""
 
 import numpy as np
 import jax
@@ -7,7 +7,6 @@ import jax.numpy as jnp
 from smoothed_particle_hydrodynamics_tpu.compat.neighbors import (
     _trunc_mod, build_cell_table)
 from smoothed_particle_hydrodynamics_tpu.config import SphConfig
-from smoothed_particle_hydrodynamics_tpu.ops.pallas_step import _block_windows, LANE
 
 
 def test_trunc_mod_matches_c_semantics():
@@ -49,28 +48,23 @@ def test_cell_table_ascending_ids():
 
 
 def test_block_windows_from_cells():
-    """Windows derive from the block's first/last cell; empty rods give 0
-    chunks (DMA + compute skipped); starts are lane-aligned."""
+    """Windows derive from the block's first/last cell: the centre rod covers
+    the occupied cell's rows, rods whose cells are empty have length 0."""
+    from smoothed_particle_hydrodynamics_tpu.ops.pallas_sweep import (
+        block_windows)
+
     cfg = SphConfig(num_particles=8)
-    # all particles in one interior cell -> center rod window = that cell's
-    # range; rods whose cells are empty -> 0 chunks
+    # all particles in one interior cell
     cid = jnp.full((8,), (16 * cfg.grid_ny + 16) * cfg.grid_nx + 16, jnp.int32)
-    counts = jnp.zeros((cfg.num_cells,), jnp.int32).at[cid[0]].add(8)
-    cell_end = jnp.cumsum(counts).astype(jnp.int32)
-    cell_start = cell_end - counts
-    packed, clamped = _block_windows(cfg, cid, cell_start, cell_end,
-                                     nblocks=1, block_rows=8, window=256, n=8,
-                                     n_pad=1024)
-    packed = np.asarray(packed)
-    ws = packed & ~(LANE - 1)                # start in the high bits
-    wc = packed & (LANE - 1)                 # chunk count in the low 7 bits
-    assert packed.shape == (1, 9)
-    assert int(clamped) == 0
-    assert wc[0, 4] == 1                     # center rod: the occupied cell
-    # rods strictly before the occupied cell have empty windows -> skipped
-    # (rods after it may still alias the same index range; masks handle that)
-    assert wc[0, 0] == 0
-    assert (ws % LANE == 0).all()
+    ws, wl = block_windows(cfg, cid, block=8)
+    ws, wl = np.asarray(ws), np.asarray(wl)
+    assert ws.shape == wl.shape == (9,)
+    assert (ws[4], wl[4]) == (0, 8)          # centre rod: the occupied cell
+    # rods strictly before the cell start at row 0, rods after it at row 8;
+    # both are empty
+    assert (ws[0], wl[0]) == (0, 0)
+    assert (ws[8], wl[8]) == (8, 0)
+    assert (wl[[0, 1, 2, 3, 5, 6, 7, 8]] == 0).all()
 
 
 def test_honey_scene_stable():

@@ -28,8 +28,8 @@ def _run(name: str, tmp_path) -> str:
     # (distributed.py); quickstart/custom_scene inherit the env default
     proc = subprocess.run(
         [sys.executable, "-c",
-         # mirror tests/conftest.py: some TPU plugins force JAX_PLATFORMS at
-         # startup, so re-pin via jax.config before the script runs
+         # mirror tests/conftest.py: re-pin the platform via jax.config
+         # before the script runs
          "import os, jax, runpy; jax.config.update('jax_platforms', 'cpu'); "
          f"runpy.run_path({os.path.join(EXAMPLES, name)!r}, "
          "run_name='__main__')"],

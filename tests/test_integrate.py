@@ -146,7 +146,7 @@ def test_dam_break_step0_nonzero_pe():
 
 
 def test_energy_tally_stacked_matches_naive():
-    """The stacked [N,5] reduction (one fused kernel, tools/probe_tally.py)
+    """The stacked [N,5] reduction (one fused kernel)
     must agree with the per-scalar formulation, and l_vec must carry the
     UN-normed vector so distributed callers can psum it before the norm."""
     rng = np.random.default_rng(7)

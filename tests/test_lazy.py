@@ -24,8 +24,7 @@ pytestmark = pytest.mark.slow
 
 
 def _scene(**kw):
-    base = dict(num_particles=768, pallas_layout="sublane",
-                pallas_interpret=True, pallas_window_t=64)
+    base = dict(num_particles=768, pallas_interpret=True)
     base.update(kw)
     return make_scene("splash", **base)
 
@@ -112,8 +111,7 @@ def test_uniform_translation_never_rebins():
     still matches the eager per-step-rebin path exactly."""
     steps = 6
     cfg, state = make_scene("disk", num_particles=768,
-                            pallas_layout="sublane", pallas_interpret=True,
-                            pallas_window_t=64, cell_size_factor=1.5,
+                            pallas_interpret=True, cell_size_factor=1.5,
                             central_mass=0.0)
     # uniform velocity: one full skin_half of common drift per step — the
     # old per-particle bound would rebuild every step (6 skins total)

@@ -141,92 +141,6 @@ def test_capacity_misses_are_counted():
         "every lost particle must be accounted for in migration_dropped")
 
 
-def test_slab_pallas_sweeps_match_celllist_sweeps():
-    """sweeps='pallas' runs the production sublane kernels inside each shard;
-    physics must match the celllist slab path (interpret mode on CPU)."""
-    steps = 2
-    cfg, state = _scene(pallas_interpret=True, pallas_window_t=64)
-    mesh = make_mesh(8)
-    p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-
-    carries = {}
-    for eng in ("celllist", "pallas"):
-        carry = slabs.distribute(cfg, state, mesh, p_cap)
-        f = slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap,
-                                 donate=False, sweeps=eng)
-        for _ in range(steps):
-            carry, diag = f(carry)
-        carries[eng] = (slabs.collect(carry, cfg.num_particles), diag)
-
-    got, gd = carries["pallas"]
-    ref, rd = carries["celllist"]
-    np.testing.assert_allclose(np.asarray(got.position),
-                               np.asarray(ref.position),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(float(gd.neighbor_mean),
-                               float(rd.neighbor_mean), rtol=1e-6)
-    assert int(gd.migration_dropped) == 0
-
-
-def test_slab_pallas_wide_blocks_match_celllist():
-    """pallas_block_t=256 inside the slab engine (wider kernel grid steps,
-    b-multiple caps): physics must match the celllist slab path, capped mode
-    included (the capped kept set is block-width independent)."""
-    steps = 2
-    kw = dict(pallas_interpret=True, pallas_window_t=64, pallas_block_t=256,
-              capped_candidates=0)
-    cfg, state = _scene(**kw)
-    mesh = make_mesh(8)
-    p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-    assert p_cap % 256 == 0 and h_cap % 256 == 0
-
-    carries = {}
-    for eng in ("celllist", "pallas"):
-        carry = slabs.distribute(cfg, state, mesh, p_cap)
-        f = slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap,
-                                 donate=False, sweeps=eng)
-        for _ in range(steps):
-            carry, diag = f(carry)
-        carries[eng] = (slabs.collect(carry, cfg.num_particles), diag)
-
-    got, gd = carries["pallas"]
-    ref, rd = carries["celllist"]
-    np.testing.assert_allclose(np.asarray(got.position),
-                               np.asarray(ref.position),
-                               rtol=1e-6, atol=1e-7)
-    np.testing.assert_allclose(float(gd.neighbor_mean),
-                               float(rd.neighbor_mean), rtol=1e-6)
-    assert int(gd.migration_dropped) == 0
-
-
-def test_slab_capped_wide_blocks_match_narrow():
-    """Capped slab sweeps at pallas_block_t=256 keep the identical kept set
-    and pair mask as 128 — densities and positions must agree to f32
-    round-off across block widths."""
-    steps = 2
-    base = dict(pallas_interpret=True, pallas_window_t=64,
-                capped_candidates=2)
-    mesh = make_mesh(8)
-    outs = {}
-    for b in (128, 256):
-        cfg, state = _scene(pallas_block_t=b, **base)
-        p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-        carry = slabs.distribute(cfg, state, mesh, p_cap)
-        f = slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap,
-                                 donate=False, sweeps="pallas")
-        for _ in range(steps):
-            carry, diag = f(carry)
-        outs[b] = (slabs.collect(carry, cfg.num_particles), diag)
-    got, gd = outs[256]
-    ref, rd = outs[128]
-    np.testing.assert_allclose(np.asarray(got.position),
-                               np.asarray(ref.position),
-                               rtol=1e-6, atol=1e-7)
-    assert int(gd.migration_dropped) == 0
-    np.testing.assert_allclose(float(gd.neighbor_mean),
-                               float(rd.neighbor_mean), rtol=1e-6)
-
-
 def test_multi_slab_hop_is_delivered():
     """A particle moving MORE than one slab between rebins is routed hop by
     hop to its destination (uniform while_loop) — nothing dropped, nothing
@@ -316,42 +230,6 @@ def test_balanced_zsplit_matches_and_shrinks_pcap():
                                rtol=1e-5, atol=1e-5)
 
 
-def test_slab_capped_matches_single_chip_capped():
-    """Capped mode distributed: the kept set is decided by (cell,
-    hash(original id)) — a GLOBAL deterministic policy — so the 8-mesh slab
-    engine must reproduce the single-chip capped pallas physics."""
-    from functools import partial as _partial
-
-    from smoothed_particle_hydrodynamics_tpu.ops.step import step as chip_step
-
-    steps = 2
-    cfg, state = _scene(pallas_interpret=True, pallas_window_t=64,
-                        cell_size_factor=1.25, capped_candidates=4)
-    mesh = make_mesh(8)
-    p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-    zsplit = slabs.uniform_zsplit(cfg, 8)
-    sub = slabs.derive_sub_len_slab(cfg, state, 8, zsplit)
-    assert 0 < sub < p_cap + 2 * h_cap, sub
-
-    carry = slabs.distribute(cfg, state, mesh, p_cap)
-    f = slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap, donate=False,
-                             sweeps="pallas", sub_len=sub)
-    for _ in range(steps):
-        carry, diag = f(carry)
-    got = slabs.collect(carry, cfg.num_particles)
-    assert int(diag.truncated_ranges) == 0, "derived sub_len overflowed"
-
-    ref = state
-    g = jax.jit(_partial(chip_step, cfg, backend="pallas"))
-    for _ in range(steps):
-        ref, rdiag = g(ref)
-    np.testing.assert_allclose(np.asarray(got.position),
-                               np.asarray(ref.position),
-                               rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(float(diag.neighbor_mean),
-                               float(rdiag.neighbor_mean), rtol=1e-5)
-
-
 def test_lazy_slab_freezes_rebuilds_and_matches_eager():
     """Drift below the (cell-h)/2 skin: the lazy engine must freeze the sort
     + window tables across steps (rebin_count stays at the initial build) and
@@ -390,69 +268,6 @@ def test_lazy_slab_freezes_rebuilds_and_matches_eager():
                                float(eager_diag.kinetic_energy), rtol=1e-5)
     np.testing.assert_allclose(float(lazy_diag.neighbor_mean),
                                float(eager_diag.neighbor_mean), rtol=1e-6)
-
-
-def test_lazy_slab_pallas_freezes_and_matches():
-    """Same freeze-equality contract through the production pallas sweeps
-    (interpret mode): frozen ws/wc tables must reproduce eager physics."""
-    steps = 4
-    cfg, state = _scene(pallas_interpret=True, pallas_window_t=64,
-                        cell_size_factor=1.25)
-    state = state._replace(velocity=state.velocity * 0.0)
-    mesh = make_mesh(8)
-    p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-
-    outs = {}
-    for lazy in (True, False):
-        carry = slabs.distribute(cfg, state, mesh, p_cap)
-        f = slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap,
-                                 donate=False, sweeps="pallas", lazy=lazy)
-        for _ in range(steps):
-            carry, diag = f(carry)
-        outs[lazy] = (carry, slabs.collect(carry, cfg.num_particles))
-    assert int(np.asarray(outs[True][0].rebin_count)[0]) < steps
-    np.testing.assert_allclose(np.asarray(outs[True][1].position),
-                               np.asarray(outs[False][1].position),
-                               rtol=1e-5, atol=1e-6)
-
-
-def test_slab_window_tables_exclude_dead_and_inert_rows():
-    """The store's dead tail (cid slab_hi-1) and chain-end inert halos
-    (cid -1 / num_cells) must not inflate pallas window tables: at 1M scale
-    the polluted windows swept ~500k junk rows per top-cell window and all
-    h_cap inert rows per bottom-cell window (r3 hardware findings — the
-    first stalled the TPU worker until the watchdog killed it)."""
-    import jax.numpy as jnp
-
-    from smoothed_particle_hydrodynamics_tpu.parallel.slabs import (
-        _pallas_tables)
-
-    cfg, state = _scene(n=4096, pallas_window_t=64)
-    cfg = cfg.replace(pallas_window_t=64)
-    nxny = cfg.grid_nx * cfg.grid_ny
-    slab_hi = cfg.grid_nz * nxny          # 1-device slab = whole grid
-    p_cap, h_cap = 1024, 128
-    cnt = 500                             # 524 dead rows
-    rng = np.random.default_rng(0)
-    # valid rows concentrated in the TOP cells so windows touch slab_hi-1
-    cid_valid = np.sort(rng.integers(slab_hi - 3 * nxny, slab_hi, cnt))
-    cid_local = np.concatenate(
-        [cid_valid, np.full(p_cap - cnt, slab_hi - 1)]).astype(np.int32)
-    cid_ext = np.concatenate([
-        np.full(h_cap, -1, np.int32),             # chain-end left halo
-        cid_local,
-        np.full(h_cap, cfg.num_cells, np.int32),  # chain-end right halo
-    ])
-    ws, wc = _pallas_tables(cfg, jnp.asarray(cid_local),
-                            jnp.asarray(cid_ext), h_cap, p_cap,
-                            jnp.int32(cnt), jnp.int32(slab_hi))
-    wc = np.asarray(wc).reshape(p_cap // 128, 9)
-    ws = np.asarray(ws).reshape(p_cap // 128, 9)
-    # fully-dead blocks (first row >= cnt): no chunks at all
-    assert (wc[4:] == 0).all(), wc
-    # live blocks: no window may span the ~524-row dead run (occupancy here
-    # is ~170 rows/cell worst case; 8 chunks of 64 bounds every real window)
-    assert wc[:4].max() <= 8, wc[:4]
 
 
 def test_dynamic_rebalance_prevents_overflow():
@@ -498,7 +313,7 @@ def test_dynamic_rebalance_prevents_overflow():
         for _ in range(block):
             carry, diag = f(carry)
             dropped += int(diag.migration_dropped)
-        carry2, zs2, caps2, _sub2, changed = slabs.maybe_rebalance(
+        carry2, zs2, caps2, changed = slabs.maybe_rebalance(
             cfg, mesh, carry, cfg.num_particles, threshold=1.2)
         if changed:
             carry, zs, caps = carry2, zs2, caps2
@@ -528,20 +343,6 @@ def test_long_march_conservation():
             assert int(diag.migration_dropped) == 0, f"step {i}"
             assert np.isfinite(float(diag.kinetic_energy)), f"step {i}"
             assert int(np.asarray(carry.count).sum()) == cfg.num_particles
-
-
-def test_slab_pallas_enforces_kernel_constraints():
-    """The distributed path must validate the same kernel constraints as
-    the single-chip path (capped mode requires pallas_groups=1)."""
-    import pytest
-
-    cfg, state = _scene(pallas_interpret=True, pallas_window_t=64,
-                        capped_candidates=4, pallas_groups=2)
-    mesh = make_mesh(8)
-    p_cap, h_cap, m_cap = slabs.derive_slab_caps(cfg, state, 8)
-    with pytest.raises(ValueError, match="pallas_groups"):
-        slabs.make_slab_step(cfg, mesh, p_cap, h_cap, m_cap,
-                             sweeps="pallas", sub_len=256)
 
 
 def test_slab_scan_block_matches_per_step_dispatch():
@@ -574,65 +375,5 @@ def test_slab_scan_block_matches_per_step_dispatch():
     np.testing.assert_allclose(np.asarray(got.position),
                                np.asarray(ref.position), rtol=0, atol=0)
     np.testing.assert_allclose(diagsk, diags1, rtol=1e-6)
-
-
-def test_plane_local_window_tables_cover_candidates_mid_slab():
-    """Plane-LOCAL window tables (base > 0, a middle device) must cover every
-    true candidate row: halo rows deeper than the halo plane (below the local
-    range) enter the bounds only as a positional offset, rows above the range
-    land past every queried bound, dead rows keep their positional offset.
-    Oracle: brute-force first/last candidate position per (block, rod)."""
-    import jax.numpy as jnp
-
-    from smoothed_particle_hydrodynamics_tpu.ops import pallas_step_t as pt
-    from smoothed_particle_hydrodynamics_tpu.parallel.slabs import (
-        _pallas_tables)
-
-    cfg, _ = _scene(n=4096, pallas_window_t=64)
-    nxny = cfg.grid_nx * cfg.grid_ny
-    window = cfg.pallas_window_t
-    # middle device of a 2-dev split: planes [8, 16) -> cells [slab_lo, hi)
-    slab_lo, slab_hi = 8 * nxny, 16 * nxny
-    base = slab_lo - nxny
-    loc = (8 + 2) * nxny
-    p_cap, h_cap, cnt = 256, 128, 200
-    rng = np.random.default_rng(3)
-
-    cid_local = np.sort(rng.integers(slab_lo, slab_hi, cnt))
-    cid_local = np.concatenate(
-        [cid_local, np.full(p_cap - cnt, slab_hi - 1)]).astype(np.int32)
-    # left halo: 40 deep rows BELOW the halo plane + the halo plane itself
-    left = np.sort(np.concatenate([
-        rng.integers(slab_lo - 3 * nxny, slab_lo - nxny, 40),
-        rng.integers(slab_lo - nxny, slab_lo, h_cap - 40)]))
-    # right halo: halo plane + 30 deep rows ABOVE it
-    right = np.sort(np.concatenate([
-        rng.integers(slab_hi, slab_hi + nxny, h_cap - 30),
-        rng.integers(slab_hi + nxny, slab_hi + 3 * nxny, 30)]))
-    cid_ext = np.concatenate([left, cid_local, right]).astype(np.int32)
-
-    ws, wc = _pallas_tables(cfg, jnp.asarray(cid_local), jnp.asarray(cid_ext),
-                            h_cap, p_cap, jnp.int32(cnt), jnp.int32(slab_hi),
-                            jnp.int32(base), loc)
-    ws = np.asarray(ws).reshape(p_cap // pt.BLANE, len(pt._RODS))
-    wc = np.asarray(wc).reshape(p_cap // pt.BLANE, len(pt._RODS))
-
-    pos = np.arange(len(cid_ext))
-    dead = (pos >= h_cap + cnt) & (pos < h_cap + p_cap)
-    deltas = np.asarray([(dz * cfg.grid_ny + dy) * cfg.grid_nx
-                         for dy, dz in pt._RODS])
-    for b in range(p_cap // pt.BLANE):
-        rows = cid_local[b * pt.BLANE:(b + 1) * pt.BLANE]
-        for r, dlt in enumerate(deltas):
-            lo = np.clip(rows[0] + dlt - 1, 0, cfg.num_cells - 1)
-            hi = np.clip(rows[-1] + dlt + 1, 0, cfg.num_cells - 1)
-            cand = (~dead & (cid_ext >= max(lo, base))
-                    & (cid_ext <= min(hi, base + loc - 1)))
-            if not cand.any():
-                continue
-            first, last = pos[cand][0], pos[cand][-1]
-            end = ws[b, r] + wc[b, r] * window
-            assert ws[b, r] <= first, (b, r, ws[b, r], first)
-            assert end > last, (b, r, end, last)
 
 
